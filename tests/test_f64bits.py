@@ -1,9 +1,8 @@
-"""Tests for the platform-dependent float-bits codec (ops/f64bits.py).
+"""Tests for the float-bits codec (ops/f64bits.py).
 
-These run on the CPU backend (conftest), where the word is the real IEEE
-bit pattern — the oracle is numpy's bit view.  The TPU pair branch is
-exercised by the on-device smoke suite (scripts/device_smoke.py) and, for
-trace coverage, via jax.jit lowering of the pair functions here.
+The word is the IEEE bit pattern on every backend, so numpy's bit view is
+the oracle.  The CPU tests run the codec on the CPU and check its CUDA
+lowering as text; `chip_smoke.py` runs it on the card at 10^7 rows.
 """
 
 import numpy as np
@@ -73,16 +72,48 @@ def test_nan_sorts_above_inf_and_is_canonical():
     assert k[0] > k[2] > k[3]
 
 
-def test_pair_branch_traces():
-    # the TPU pair encode/decode must at least trace and lower on CPU
-    # (platform coverage runs on the chip in the device smoke suite)
-    # values exactly representable as an f32 pair (<= 48-bit mantissas)
-    x = jnp.asarray(np.array([1.5, -2.25, 123456.75, 2.0**90, 0.0], np.float64))
-    w = jax.jit(f64bits._word_pair)(x)
-    back = np.asarray(jax.jit(f64bits._unword_pair)(w))
-    np.testing.assert_array_equal(back, np.asarray(x))
-    k = np.asarray(jax.jit(f64bits._ordered_pair)(x))
-    assert (np.argsort(k) == np.argsort(np.asarray(x), kind="stable")).all()
+def test_adjacent_doubles_get_distinct_codes():
+    # doubles one ulp apart must stay apart in both the word and the order
+    # key; a float32-pair encoding collapses them
+    base = np.array([1.2345678901234567, 1e-300, 3.0e300, -7.25, 1.0])
+    up = np.nextafter(base, np.inf)
+    x = jnp.asarray(np.concatenate([base, up]))
+    w = np.asarray(f64bits.f64_to_word(x))
+    k = np.asarray(f64bits.f64_to_ordered(x))
+    n = len(base)
+    assert (w[:n] != w[n:]).all()
+    assert (k[:n] < k[n:]).all()
+    back = np.asarray(f64bits.word_to_f64(jnp.asarray(w)))
+    np.testing.assert_array_equal(back.view(np.int64), np.asarray(x).view(np.int64))
+
+
+def test_signed_zeros_share_an_order_key_not_a_word():
+    x = jnp.asarray(np.array([0.0, -0.0], np.float64))
+    k = np.asarray(f64bits.f64_to_ordered(x))
+    w = np.asarray(f64bits.f64_to_word(x))
+    assert k[0] == k[1]
+    assert w[0] != w[1]  # the word keeps the sign bit: it round-trips
+    np.testing.assert_array_equal(w, np.array([0.0, -0.0]).view(np.int64))
+
+
+def test_subnormals_keep_their_order():
+    tiny = np.array([-5e-324, 0.0, -0.0, 5e-324, 1e-310, 2.2250738585072014e-308])
+    k = np.asarray(f64bits.f64_to_ordered(jnp.asarray(tiny)))
+    assert k[0] < k[1] == k[2] < k[3] < k[4] < k[5]
+
+
+@pytest.mark.parametrize(
+    "fn", [f64bits.f64_to_word, f64bits.f64_to_ordered, f64bits.word_to_f64]
+)
+def test_cuda_lowering_is_a_64bit_bitcast(fn):
+    """The CUDA module holds the 64-bit bitcast and no float32 conversion
+    (the codec is one lax program on every platform)."""
+    dtype = jnp.int64 if fn is f64bits.word_to_f64 else jnp.float64
+    x = jax.ShapeDtypeStruct((1024,), dtype)
+    text = jax.jit(fn).trace(x).lower(lowering_platforms=("cuda",)).as_text()
+    assert "bitcast_convert" in text
+    assert "f64" in text and "i64" in text
+    assert "f32" not in text
 
 
 def test_f32_bits_roundtrip():
@@ -100,3 +131,57 @@ def test_u64_wrap_roundtrip():
     np.testing.assert_array_equal(w, u.view(np.int64))
     back = np.asarray(f64bits.i64_to_u64(jnp.asarray(w)))
     np.testing.assert_array_equal(back, u)
+
+
+def _double_table(v):
+    from velox_tpu.dtypes import BIGINT, DOUBLE, RowType
+    from velox_tpu.io.table import Table
+
+    k = np.arange(len(v), dtype=np.int64) % 3
+    return Table(RowType(["k", "v"], [BIGINT, DOUBLE]), {"k": k, "v": v})
+
+
+SPECIAL_KEYS = np.array(
+    [np.nan, -np.nan, 0.0, -0.0, 5e-324, -5e-324, np.inf, -np.inf, 1.5,
+     np.nextafter(1.5, 2.0)] * 7
+)
+
+
+@pytest.mark.parametrize("tile_rows", [1 << 14, 16])
+def test_group_by_double_keys_matches_numpy(tile_rows):
+    """One NaN group, -0.0 with +0.0, subnormals and ulp neighbours apart —
+    in one tile and across tiles (the carry merge)."""
+    from velox_tpu.exec.runner import LocalExecutor
+    from velox_tpu.plan import PlanBuilder
+
+    bits = SPECIAL_KEYS.view(np.int64).copy()
+    bits[1] ^= 0x5  # a second NaN payload
+    v = bits.view(np.float64)
+    plan = (
+        PlanBuilder()
+        .table_scan(_double_table(v))
+        .aggregation(["v"], ["count(*) as c"])
+        .orderby(["v"])
+        .build()
+    )
+    out = LocalExecutor(plan, tile_rows=tile_rows).run()
+    uniq, counts = np.unique(v, return_counts=True)
+    np.testing.assert_array_equal(np.asarray(out.columns["v"]), uniq)
+    np.testing.assert_array_equal(np.asarray(out.columns["c"]), counts)
+
+
+def test_window_order_by_double_desc_puts_nan_first():
+    from velox_tpu.sql import run_sql
+
+    v = SPECIAL_KEYS
+    out = run_sql(
+        "select k, v, row_number() over (partition by k order by v desc) as rn"
+        " from t",
+        {"t": _double_table(v)},
+    )
+    k, got, rn = (np.asarray(out.columns[c]) for c in ("k", "v", "rn"))
+    order = np.lexsort((rn, k))
+    for part in range(3):
+        m = k[order] == part
+        want = np.sort(v[np.arange(len(v)) % 3 == part])[::-1]
+        np.testing.assert_array_equal(got[order][m], want)

@@ -16,7 +16,7 @@ from velox_tpu.vector.string_table import StringTable
 
 def make():
     st = StringTable()
-    codes = st.intern_all(["hello world", "foo bar", "hello tpu", ""])
+    codes = st.intern_all(["hello world", "foo bar", "hello xla", ""])
     return Table(
         RowType(["s", "d", "n", "x"], [VARCHAR, DATE, BIGINT, DOUBLE]),
         {
@@ -51,16 +51,16 @@ def test_string_functions():
             "codepoint(s) as cp",
         ]
     )
-    assert out["c"].tolist() == ["hello world!", "foo bar!", "hello tpu!", "!"]
+    assert out["c"].tolist() == ["hello world!", "foo bar!", "hello xla!", "!"]
     assert out["sp"].tolist() == [5, 2, 5, 0]
     assert out["sw"].tolist() == [True, False, True, False]
     assert out["ew"].tolist() == [False, True, False, False]
-    assert out["rp"].tolist() == ["hi world", "foo bar", "hi tpu", ""]
+    assert out["rp"].tolist() == ["hi world", "foo bar", "hi xla", ""]
     assert out["fp"].tolist() == ["hello", "foo", "hello", ""]
-    assert out["lp"].tolist() == ["**hello world", "******foo bar", "****hello tpu", "*" * 13]
+    assert out["lp"].tolist() == ["**hello world", "******foo bar", "****hello xla", "*" * 13]
     assert out["rl"].tolist() == [True, False, False, False]
-    assert out["rx"].tolist() == ["world", "bar", "tpu", ""]
-    assert out["rr"].tolist() == ["h_ll_ w_rld", "f__ b_r", "h_ll_ tp_", ""]
+    assert out["rx"].tolist() == ["world", "bar", "xla", ""]
+    assert out["rr"].tolist() == ["h_ll_ w_rld", "f__ b_r", "h_ll_ xl_", ""]
     assert out["cp"].tolist() == [ord("h"), ord("f"), ord("h"), 0]
 
 

@@ -129,26 +129,6 @@ def test_data_cache_hits(tmp_path):
     np.testing.assert_array_equal(a.columns["x"], t.columns["x"])
 
 
-def test_pallas_selective_sum_interpret():
-    """Pallas scan kernel (interpret mode on CPU) == XLA path == numpy."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from velox_tpu.ops.pallas_kernels import selective_sum, selective_sum_xla
-
-    rng = np.random.default_rng(3)
-    n = 1 << 14
-    vals = jnp.asarray(rng.integers(-(10**9), 10**10, n))
-    f1 = jnp.asarray(rng.integers(0, 50, n))
-    bounds = [(10, 30)]
-    hi, lo, cnt = selective_sum(vals, [f1], bounds, interpret=True)
-    xhi, xlo, xcnt = selective_sum_xla(vals, [f1], bounds)
-    assert int(hi) * (1 << 32) + int(lo) == int(xhi) * (1 << 32) + int(xlo)
-    m = (np.asarray(f1) >= 10) & (np.asarray(f1) <= 30)
-    assert int(cnt) == int(m.sum()) == int(xcnt)
-    assert int(hi) * (1 << 32) + int(lo) == int(np.asarray(vals)[m].sum())
-
-
 def test_data_cache_async_prefetch(tmp_path):
     """prefetch() loads asynchronously on the I/O executor; a subsequent
     get_or_load JOINS the in-flight future (no double read, no deadlock)

@@ -1,6 +1,5 @@
-"""Exactness of the narrow grouped piece-sum kernel (ops/pallas_group_piece)
-against numpy, in pallas interpreter mode (the structure itself is
-device-probed by scripts/probe_pallas_onehot.py)."""
+"""Exactness of the int32 grouped piece-sum lowering (ops/piece_sum.py)
+against numpy."""
 
 import numpy as np
 import pytest
@@ -8,14 +7,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from velox_tpu.ops.pallas_group_piece import (
-    BLOCK,
-    PIECE_MAX_PALLAS,
+from velox_tpu.ops.piece_sum import (
     Factor,
     SpecPlan,
-    grouped_piece_sums,
+    grouped_piece_sums_xla,
     plan_spec,
 )
+
+BLOCK = 1024
 
 
 def _np_oracle(cols, gid, plans, G):
@@ -55,15 +54,13 @@ def test_q1_shaped_specs_exact():
         [f_d],  # sum(l_discount)
         [],  # count
     ]
-    plans = tuple(plan_spec(s, piece_max=PIECE_MAX_PALLAS) for s in specs)
+    plans = tuple(plan_spec(s) for s in specs)
     assert all(p is not None for p in plans)
     assert plans[1].n_chunks > 1  # ep alone must chunk
     assert plans[3].n_prefix == 2 and plans[3].n_chunks > 1
 
     cols = tuple(jnp.asarray(c) for c in (ep, qty, d, t))
-    got = grouped_piece_sums(
-        cols, jnp.asarray(gid), plans, G, interpret=True
-    )
+    got = grouped_piece_sums_xla(cols, jnp.asarray(gid), plans, G)
     exp = _np_oracle([ep, qty, d, t], gid, plans, G)
     for g, e in zip(got, exp):
         np.testing.assert_array_equal(np.asarray(g), e)
@@ -82,24 +79,20 @@ def test_planner_gates():
 def test_large_group_pad_and_min_values():
     rng = np.random.default_rng(1)
     n = 2 * BLOCK
-    G = 13  # pads to 16
+    G = 13  # not a power of two
     x = rng.integers(0, 1000, n).astype(np.int16)
     gid = rng.integers(0, G, n).astype(np.int8)
     plans = (
-        plan_spec([Factor(0, 1, 0, 0, 999)], piece_max=PIECE_MAX_PALLAS),
+        plan_spec([Factor(0, 1, 0, 0, 999)]),
         plan_spec([]),
     )
-    got = grouped_piece_sums(
-        (jnp.asarray(x),), jnp.asarray(gid), plans, G, interpret=True
-    )
+    got = grouped_piece_sums_xla((jnp.asarray(x),), jnp.asarray(gid), plans, G)
     exp = _np_oracle([x], gid, plans, G)
     for g, e in zip(got, exp):
         np.testing.assert_array_equal(np.asarray(g), e)
 
 
 def test_xla_form_matches():
-    from velox_tpu.ops.pallas_group_piece import grouped_piece_sums_xla
-
     rng = np.random.default_rng(2)
     n = 2 * BLOCK
     G = 6

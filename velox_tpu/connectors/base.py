@@ -4,7 +4,7 @@ Reference: velox/connectors/Connector.h — Connector (:324) creating DataSource
 (:163, scan side) and DataSink (:136, write side) instances, ConnectorSplit
 (:58) as the unit of scan work, and a process-wide registry (:393,419).
 
-The TPU engine keeps the same seams with a host-side simplification: a
+This engine keeps the same seams with a host-side simplification: a
 DataSource yields host ``Table`` chunks (the device only ever sees tiles the
 executor slices), and a DataSink consumes host ``Table`` chunks.
 """

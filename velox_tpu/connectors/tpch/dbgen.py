@@ -893,14 +893,17 @@ _MONEY = {
 
 
 def _string_column(values: np.ndarray):
-    """(codes int32, StringTable) via pandas factorize (fast dedup)."""
-    import pandas as pd
-
+    """(codes int32, StringTable), dictionary in first-occurrence order."""
     from ...vector.string_table import StringTable
 
-    codes, uniques = pd.factorize(values)
-    tab = StringTable.from_values([""] + list(uniques))
-    return (codes + 1).astype(np.int32), tab
+    uniq, first, inverse = np.unique(
+        values, return_index=True, return_inverse=True
+    )
+    order = np.argsort(first)
+    rank = np.empty(len(order), dtype=np.int64)
+    rank[order] = np.arange(len(order))
+    tab = StringTable.from_values([""] + list(uniq[order]))
+    return (rank[inverse.reshape(-1)] + 1).astype(np.int32), tab
 
 
 def table(name: str, sf: float = 1.0, columns=None):

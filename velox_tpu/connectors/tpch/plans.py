@@ -19,8 +19,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-import pandas as pd
-
 from ...exec import run_plan
 from ...io.table import Table
 from ...plan import PlanBuilder, PlanNode
@@ -1081,6 +1079,12 @@ def oracle_result(num: int, tables: Dict[str, Table]) -> pd.DataFrame:
     fn = getattr(_q, f"q{num}_oracle")
     _, names = _BUILDERS[num]
     return fn(*[tables[n] for n in names])
+
+
+def oracle_columns(num: int, tables: Dict[str, Table]) -> Dict[str, np.ndarray]:
+    """The numpy oracle of Q1, Q3, Q6 or Q13 (queries.NUMPY_ORACLES)."""
+    _, names = _BUILDERS[num]
+    return _q.NUMPY_ORACLES[num](*[tables[n] for n in names])
 
 
 ENGINE_OUTPUT_ORDER = {

@@ -14,7 +14,6 @@ import re
 from typing import Dict
 
 import numpy as np
-import pandas as pd
 
 from .gen import _days
 
@@ -56,6 +55,8 @@ Q1_COLUMNS = [
 
 
 def q1_oracle(lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     cutoff = _days("1998-12-01") - 90
     keep = lineitem.columns["l_shipdate"] <= cutoff
     rf = lineitem.columns["l_returnflag"][keep]
@@ -129,6 +130,8 @@ Q3_COLUMNS = {
 
 
 def q3_oracle(customer, orders, lineitem, limit: int = 10) -> pd.DataFrame:
+    import pandas as pd
+
     cutoff = _days("1995-03-15")
     seg_code = customer.string_tables["c_mktsegment"].lookup("BUILDING")
     ckeep = customer.columns["c_mktsegment"] == seg_code
@@ -182,6 +185,8 @@ Q6_COLUMNS = ["l_extendedprice", "l_discount", "l_quantity", "l_shipdate"]
 
 
 def q6_oracle(lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     lo, hi = _days("1994-01-01"), _days("1994-01-01") + 365
     c = lineitem.columns
     keep = (
@@ -209,6 +214,8 @@ Q15_COLUMNS = {
 
 
 def q15_oracle(supplier, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     lo, hi = _days("1996-01-01"), _days("1996-04-01")
     c = lineitem.columns
     keep = (c["l_shipdate"] >= lo) & (c["l_shipdate"] < hi)
@@ -255,6 +262,8 @@ _Q16_SIZES = [49, 14, 23, 45, 19, 3, 36, 9]
 
 
 def q16_oracle(part, partsupp, supplier) -> pd.DataFrame:
+    import pandas as pd
+
     brand = part.string_tables["p_brand"].decode(part.columns["p_brand"]).astype(str)
     ptype = part.string_tables["p_type"].decode(part.columns["p_type"]).astype(str)
     keep = (
@@ -311,6 +320,8 @@ Q17_COLUMNS = {
 
 
 def q17_oracle(part, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     brand = part.string_tables["p_brand"].decode(part.columns["p_brand"]).astype(str)
     cont = (
         part.string_tables["p_container"]
@@ -347,6 +358,8 @@ Q18_COLUMNS = {
 
 
 def q18_oracle(customer, orders, lineitem, limit=100) -> pd.DataFrame:
+    import pandas as pd
+
     li = pd.DataFrame(
         {
             "l_orderkey": lineitem.columns["l_orderkey"],
@@ -396,6 +409,8 @@ Q19_COLUMNS = {
 
 
 def q19_oracle(part, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     c = lineitem.columns
     modes = lineitem.string_tables["l_shipmode"].decode(c["l_shipmode"]).astype(str)
     instr = (
@@ -464,6 +479,8 @@ Q20_COLUMNS = {
 
 
 def q20_oracle(part, partsupp, lineitem, supplier, nation) -> pd.DataFrame:
+    import pandas as pd
+
     pname = part.string_tables["p_name"].decode(part.columns["p_name"]).astype(str)
     forest = part.columns["p_partkey"][np.char.startswith(pname, "forest")]
     lo, hi = _days("1994-01-01"), _days("1995-01-01")
@@ -521,6 +538,8 @@ Q21_COLUMNS = {
 
 
 def q21_oracle(supplier, lineitem, orders, nation, limit=100) -> pd.DataFrame:
+    import pandas as pd
+
     c = lineitem.columns
     late = c["l_receiptdate"] > c["l_commitdate"]
     li = pd.DataFrame(
@@ -583,6 +602,8 @@ _Q22_CODES = ["13", "31", "23", "29", "30", "18", "17"]
 
 
 def q22_oracle(customer, orders) -> pd.DataFrame:
+    import pandas as pd
+
     phones = (
         customer.string_tables["c_phone"].decode(customer.columns["c_phone"]).astype(str)
     )
@@ -624,6 +645,8 @@ Q13_COLUMNS = {
 
 
 def q13_oracle(customer, orders) -> pd.DataFrame:
+    import pandas as pd
+
     pattern = re.compile(_like_to_regex("%special%requests%"))
     table = orders.string_tables["o_comment"]
     match_by_code = np.asarray(
@@ -641,6 +664,135 @@ def q13_oracle(customer, orders) -> pd.DataFrame:
     return dist.reset_index(drop=True)
 
 
+# ---- numpy oracles (Q1 Q3 Q6 Q13) ----------------------------------------
+# The same four queries on numpy alone, for runs where pandas is absent.
+# Each returns {column: numpy array} in the engine's output order, with
+# decimals UNSCALED int64 (the engine's own representation, so sums compare
+# exactly), dates int32 days, strings decoded, and avg as float64.
+
+
+def _group_sums(gid: np.ndarray, n_groups: int, values) -> list:
+    """Exact int64 per-group sums of each array in ``values``."""
+    order = np.argsort(gid, kind="stable")
+    starts = np.searchsorted(gid[order], np.arange(n_groups))
+    return [np.add.reduceat(v[order].astype(np.int64), starts) for v in values]
+
+
+def q1_columns(lineitem) -> Dict[str, np.ndarray]:
+    c = lineitem.columns
+    keep = c["l_shipdate"] <= _days("1998-12-01") - 90
+    rf_table = lineitem.string_tables["l_returnflag"]
+    ls_table = lineitem.string_tables["l_linestatus"]
+    # order groups by their decoded strings, as ORDER BY does
+    rf_rank = np.argsort(np.argsort(np.asarray(rf_table.values(), dtype=object)))
+    ls_rank = np.argsort(np.argsort(np.asarray(ls_table.values(), dtype=object)))
+    rf = c["l_returnflag"][keep]
+    ls = c["l_linestatus"][keep]
+    key = rf_rank[rf].astype(np.int64) * len(ls_rank) + ls_rank[ls]
+    uniq, gid = np.unique(key, return_inverse=True)
+    ep = c["l_extendedprice"][keep].astype(np.int64)
+    disc = c["l_discount"][keep].astype(np.int64)
+    tax = c["l_tax"][keep].astype(np.int64)
+    qty, base, disc_price, charge, dsum, count = _group_sums(
+        gid,
+        len(uniq),
+        [
+            c["l_quantity"][keep],
+            ep,
+            ep * (100 - disc),  # scale 4, exact per row
+            ep * (100 - disc) * (100 + tax),  # scale 6
+            disc,
+            np.ones(len(gid), np.int64),
+        ],
+    )
+    rf_of = np.argsort(rf_rank)[uniq // len(ls_rank)]
+    ls_of = np.argsort(ls_rank)[uniq % len(ls_rank)]
+    return {
+        "l_returnflag": rf_table.decode(rf_of),
+        "l_linestatus": ls_table.decode(ls_of),
+        "sum_qty": qty,
+        "sum_base_price": base,
+        "sum_disc_price": disc_price,
+        "sum_charge": charge,
+        "avg_qty": qty / 100.0 / count,
+        "avg_price": base / 100.0 / count,
+        "avg_disc": dsum / 100.0 / count,
+        "count_order": count,
+    }
+
+
+def q3_columns(customer, orders, lineitem, limit: int = 10) -> Dict[str, np.ndarray]:
+    cutoff = _days("1995-03-15")
+    seg_code = customer.string_tables["c_mktsegment"].lookup("BUILDING")
+    ckeys = customer.columns["c_custkey"][customer.columns["c_mktsegment"] == seg_code]
+    o = orders.columns
+    okeep = (o["o_orderdate"] < cutoff) & np.isin(o["o_custkey"], ckeys)
+    okey = o["o_orderkey"][okeep]
+    oorder = np.argsort(okey, kind="stable")
+    okey = okey[oorder]
+    odate = o["o_orderdate"][okeep][oorder]
+    oprio = o["o_shippriority"][okeep][oorder]
+
+    li = lineitem.columns
+    lkeep = li["l_shipdate"] > cutoff
+    lkey = li["l_orderkey"][lkeep]
+    pos = np.clip(np.searchsorted(okey, lkey), 0, max(len(okey) - 1, 0))
+    hit = (okey[pos] == lkey) if len(okey) else np.zeros(len(lkey), bool)
+    rev = li["l_extendedprice"][lkeep][hit].astype(np.int64) * (
+        100 - li["l_discount"][lkeep][hit].astype(np.int64)
+    )
+    opos = pos[hit]  # orderkey is unique, so its index is the group
+    groups, gid = np.unique(opos, return_inverse=True)
+    (revenue,) = _group_sums(gid, len(groups), [rev])
+    top = np.lexsort((okey[groups], odate[groups], -revenue))[:limit]
+    g = groups[top]
+    return {
+        "l_orderkey": okey[g],
+        "o_orderdate": odate[g],
+        "o_shippriority": oprio[g],
+        "revenue": revenue[top],
+    }
+
+
+def q6_columns(lineitem) -> Dict[str, np.ndarray]:
+    lo, hi = _days("1994-01-01"), _days("1994-01-01") + 365
+    c = lineitem.columns
+    keep = (
+        (c["l_shipdate"] >= lo)
+        & (c["l_shipdate"] < hi)
+        & (c["l_discount"] >= 5)
+        & (c["l_discount"] <= 7)
+        & (c["l_quantity"] < 2400)
+    )
+    revenue = np.sum(
+        c["l_extendedprice"][keep].astype(np.int64)
+        * c["l_discount"][keep].astype(np.int64)
+    )
+    return {"revenue": np.asarray([revenue], np.int64)}
+
+
+def q13_columns(customer, orders) -> Dict[str, np.ndarray]:
+    pattern = re.compile(_like_to_regex("%special%requests%"))
+    table = orders.string_tables["o_comment"]
+    match_by_code = np.asarray(
+        [bool(pattern.match(s)) for s in table.values()], dtype=bool
+    )
+    keep = ~match_by_code[orders.columns["o_comment"]]
+    ckey = customer.columns["c_custkey"]
+    okey = orders.columns["o_custkey"][keep]
+    size = int(max(ckey.max(initial=0), okey.max(initial=0))) + 1
+    per_customer = np.bincount(okey, minlength=size)[ckey]
+    c_count, custdist = np.unique(per_customer, return_counts=True)
+    order = np.lexsort((-c_count, -custdist))
+    return {
+        "c_count": c_count[order].astype(np.int64),
+        "custdist": custdist[order].astype(np.int64),
+    }
+
+
+NUMPY_ORACLES = {1: q1_columns, 3: q3_columns, 6: q6_columns, 13: q13_columns}
+
+
 # ---- Q2: minimum cost supplier -------------------------------------------
 
 Q2_COLUMNS = {
@@ -656,6 +808,8 @@ Q2_COLUMNS = {
 
 
 def q2_oracle(region, nation, supplier, partsupp, part, limit=100) -> pd.DataFrame:
+    import pandas as pd
+
     rkey = region.columns["r_regionkey"][
         region.string_tables["r_name"].decode(region.columns["r_name"]) == "EUROPE"
     ]
@@ -731,6 +885,8 @@ Q4_COLUMNS = {
 
 
 def q4_oracle(orders, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     lo, hi = _days("1993-07-01"), _days("1993-10-01")
     okeep = (orders.columns["o_orderdate"] >= lo) & (
         orders.columns["o_orderdate"] < hi
@@ -765,6 +921,8 @@ Q5_COLUMNS = {
 
 
 def q5_oracle(region, nation, supplier, customer, orders, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     rkey = region.columns["r_regionkey"][
         region.string_tables["r_name"].decode(region.columns["r_name"]) == "ASIA"
     ]
@@ -833,6 +991,8 @@ Q7_COLUMNS = {
 
 
 def q7_oracle(nation, supplier, customer, orders, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     names = nation.string_tables["n_name"].decode(nation.columns["n_name"])
     nkeep = np.isin(names.astype(str), ["FRANCE", "GERMANY"])
     nat = pd.DataFrame(
@@ -905,6 +1065,8 @@ Q8_COLUMNS = {
 
 
 def q8_oracle(region, nation, customer, orders, supplier, part, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     rkey = region.columns["r_regionkey"][
         region.string_tables["r_name"].decode(region.columns["r_name"]) == "AMERICA"
     ]
@@ -976,6 +1138,8 @@ Q11_COLUMNS = {
 
 
 def q11_oracle(nation, supplier, partsupp) -> pd.DataFrame:
+    import pandas as pd
+
     de = nation.columns["n_nationkey"][
         nation.string_tables["n_name"].decode(nation.columns["n_name"]) == "GERMANY"
     ]
@@ -1009,6 +1173,8 @@ Q12_COLUMNS = {
 
 
 def q12_oracle(orders, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     lo, hi = _days("1994-01-01"), _days("1995-01-01")
     c = lineitem.columns
     modes = lineitem.string_tables["l_shipmode"].decode(c["l_shipmode"])
@@ -1045,6 +1211,8 @@ Q14_COLUMNS = {
 
 
 def q14_oracle(part, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     lo, hi = _days("1995-09-01"), _days("1995-10-01")
     c = lineitem.columns
     keep = (c["l_shipdate"] >= lo) & (c["l_shipdate"] < hi)
@@ -1085,6 +1253,8 @@ Q9_COLUMNS = {
 
 
 def q9_oracle(part, supplier, nation, partsupp, orders, lineitem) -> pd.DataFrame:
+    import pandas as pd
+
     pname = part.string_tables["p_name"].decode(part.columns["p_name"])
     green = part.columns["p_partkey"][
         np.asarray([("green" in s) for s in pname], dtype=bool)
@@ -1159,6 +1329,8 @@ Q10_COLUMNS = {
 
 
 def q10_oracle(customer, orders, lineitem, nation, limit=20) -> pd.DataFrame:
+    import pandas as pd
+
     lo, hi = _days("1993-10-01"), _days("1994-01-01")
     okeep = (orders.columns["o_orderdate"] >= lo) & (
         orders.columns["o_orderdate"] < hi

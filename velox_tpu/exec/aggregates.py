@@ -5,7 +5,7 @@ addIntermediateResults / extractValues contract), the registry at
 Aggregate.h:421, and the function package under
 velox/functions/prestosql/aggregates/ (RegisterAggregateFunctions.cpp:51-80).
 
-TPU re-design: accumulators are *columnar* — a tuple of [num_groups] jnp arrays
+Device re-design: accumulators are *columnar* — a tuple of [num_groups] jnp arrays
 (struct-of-arrays), not row-wise RowContainer state.  Grouped updates are segment
 reductions over trace-time-static ``num_groups``; ungrouped aggregation is the
 G=1 case.  Each accumulator array declares its combine op (sum/min/max), from

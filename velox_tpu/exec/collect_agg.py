@@ -2,7 +2,7 @@
 
 Reference: velox/functions/prestosql/aggregates/{ArrayAgg,SetAgg,MapAgg,
 Histogram,MapUnion}Aggregate.cpp — accumulators there are per-group
-HashStringAllocator lists.  The TPU design has no per-group dynamic state:
+HashStringAllocator lists.  This design has no per-group dynamic state:
 the device sorts/compacts rows; group assembly happens host-side on the
 (key-sorted) row stream, fully vectorized with numpy (lexsort + run-length
 slicing), producing HostSegments columns directly.  The result size equals

@@ -1,7 +1,7 @@
 """Cardinality-changing streaming operators: Unnest, GroupId, AssignUniqueId.
 
 Reference: velox/exec/Unnest.cpp, GroupId.cpp, AssignUniqueId.cpp.  These are
-the reference's row-expanding operators; on TPU they are trace-time batch
+the reference's row-expanding operators; on the device they are trace-time batch
 transforms that return a batch of a *different static capacity* (the element
 pool size for Unnest, capacity x num_sets for GroupId), which downstream steps
 consume like any other tile.

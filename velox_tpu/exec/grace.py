@@ -7,7 +7,7 @@ the reference spills build AND probe rows partitioned by key hash and joins
 partition by partition, recursively re-partitioning partitions that still do
 not fit.
 
-TPU re-design: the device never scatters rows into spill partitions.  Both
+Device re-design: the device never scatters rows into spill partitions.  Both
 sides partition by the SAME salted splitmix64 key hash, but each side in its
 natural habitat:
 

@@ -4,7 +4,7 @@ Reference: velox/exec/Task.cpp:839-1015 (createSplitGroupStateLocked, per-group
 driver cohorts, ``concurrentSplitGroups``) + PlanFragment grouped execution —
 the unit of elastic/partial restart in Presto-on-Velox.
 
-TPU re-design: a split group is a self-contained slice of a partitioned
+Device re-design: a split group is a self-contained slice of a partitioned
 dataset (Hive partition directories).  Each group runs the same plan as its
 own compiled execution; results checkpoint to parquet so a failed or
 preempted run resumes from completed groups (the reference's restart unit);

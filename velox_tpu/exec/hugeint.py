@@ -3,7 +3,7 @@
 Reference: velox/type/Type.h:665 (DECIMAL(p>18) backed by int128 HUGEINT),
 DecimalUtil.h arithmetic, DecimalAggregate.h sums.
 
-TPU re-design: no 128-bit device type exists, so a long-decimal column is
+Device re-design: no 128-bit device type exists, so a long-decimal column is
 TWO int64 limb columns (``c__hi``, ``c__lo``; value = hi*2^64 + uint64(lo)),
 and long-decimal expressions lower onto the branch-free ``__i128_*`` device
 functions (ops/int128.py) as a plan rewrite — the same lowering strategy as

@@ -4,8 +4,8 @@ Reference: velox/common/memory/Memory.h:126 (MemoryManager), MemoryPool.h:109
 (hierarchical pools with limits/tracking), MemoryArbitrator.h:43 (+ reclaimers:
 pause -> spill -> resume), exec/Spiller.h:26 and docs/develop/spilling.rst.
 
-TPU re-orientation: the scarce resource is HBM; "disk" is host RAM first and
-files second (TPU hosts usually have far more RAM than HBM).  The pool tree
+Device re-orientation: the scarce resource is HBM; "disk" is host RAM first and
+files second (hosts usually have far more RAM than device memory).  The pool tree
 tracks *logical* byte reservations of device-resident state (tiles, join build
 tables, accumulated partials); when a reservation would exceed the pool's
 limit, the arbitrator runs registered reclaimers (largest first), which spill

@@ -4,7 +4,7 @@ Reference: velox/common/hyperloglog/DenseHll.h (+ SparseHll.h) — the
 reference's approx_distinct keeps an HLL register file per group and merges
 register-wise maxima.
 
-TPU re-design: register files are scatter-hostile (random 6-bit writes into
+Device re-design: register files are scatter-hostile (random 6-bit writes into
 [group, 2048] state), but this engine's grouped aggregation is SORT-based —
 and HyperLogLog is itself just "max(rho) per (group, bucket)".  So
 approx_distinct lowers into the machinery that already exists, as a plan
@@ -104,8 +104,6 @@ def _register_hll_functions():
     # distinct bit patterns)
     def _bits_of(a):
         if jnp.issubdtype(a.dtype, jnp.floating):
-            # platform-dependent word: distinct doubles keep distinct words
-            # (64-bit float bitcasts don't compile on this TPU stack)
             from ..ops.f64bits import f64_to_word
 
             return f64_to_word(a.astype(jnp.float64))

@@ -1,10 +1,10 @@
-"""Device-resident sort: OrderBy / TopN execute on the TPU, not the host.
+"""Device-resident sort: OrderBy / TopN execute on the device, not the host.
 
 Reference: velox/exec/OrderBy.h:35 + SortBuffer.cpp (accumulate, sort, emit),
 velox/exec/TopN.h:23 (bounded priority queue), velox/exec/Merge.h:187 +
 TreeOfLosers.h (k-way merge of sorted runs).
 
-TPU re-design — no priority queues, no loser trees, no scatters:
+Device re-design — no priority queues, no loser trees, no scatters:
 
 * Every sort key is encoded as an **order-preserving int64 operand**
   (``sort_operand``): integers widen, DOUBLE uses the sign-flip bit trick,
@@ -45,9 +45,8 @@ _I64_MIN = np.iinfo(np.int64).min
 def float_to_ordered_i64(x: jax.Array) -> jax.Array:
     """Map a float column to an int64 whose ordering matches the float
     ordering; NaN maps above +inf (Presto's NaN-is-largest convention) and
-    ±0.0 share one code.  Platform-dependent under the hood
-    (ops/f64bits): the classic sign-magnitude bit flip on CPU, the
-    f32-pair key on TPU, where a 64-bit float bitcast does not compile."""
+    ±0.0 share one code: the sign-magnitude bit flip of the IEEE bits
+    (ops/f64bits)."""
     from ..ops.f64bits import f64_to_ordered
 
     return f64_to_ordered(x.astype(jnp.float64))

@@ -5,7 +5,7 @@ folly::to / DecimalUtil::toString), velox/functions/sparksql/Bin.h (bin),
 velox/functions/prestosql/StringFunctions.cpp (chr),
 velox/functions/prestosql/ArrayFunctions (array_join).
 
-TPU re-design: device strings are int32 dictionary codes whose tables are
+Device re-design: device strings are int32 dictionary codes whose tables are
 static at trace time, so a string whose VALUE depends on device data cannot
 exist on device.  But the engine rarely needs it to: a constructed string is
 (a) carried to the output, (b) compared for equality, or (c) used as a
@@ -155,7 +155,7 @@ def _unsupported(use: str):
         f"a constructed string (cast-to-varchar / bin / chr / array_join) "
         f"is used {use}; only output projection, equality, grouping and "
         "DISTINCT keys are supported for data-dependent strings "
-        "(docs/roadmap.md)"
+        "(ROADMAP.md)"
     )
 
 

@@ -3,7 +3,7 @@
 Reference: velox/exec/Window.h:38 + WindowBuild (Sort/Streaming), WindowPartition,
 velox/exec/WindowFunction.h:34; function set from velox/functions/prestosql/window/.
 
-TPU re-design: the reference accumulates all input, sorts it into partitions, and
+Device re-design: the reference accumulates all input, sorts it into partitions, and
 runs per-partition function loops.  Here the whole input is one device program:
 
   sort rows by (partition keys, order keys)  ->  partition/peer run boundaries ->
@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from ..dtypes import BIGINT, DOUBLE, DataType, RowType, TypeKind
+from ..ops.f64bits import f64_to_ordered
 from ..ops.segmented import SortedRuns, segmented_scan
 from ..plan.nodes import PlanNode, SortKey, _next_id
 from ..vector.column import Batch, Column
@@ -180,16 +181,26 @@ class WindowExec:
         in_schema = node.source.output_schema
         mask = batch.active_mask()
 
-        pkeys = [batch.column(k).decode(cap)[0] for k in node.partition_keys]
-        okeys = []
-        for sk in node.order_keys:
+        # float keys sort and compare by their order-preserving integer code
+        # (NaN largest and one peer group, -0.0 == +0.0); RANGE frames keep
+        # doing arithmetic on the (sign-flipped for DESC) float values, which
+        # ride the sort as extra operands
+        pkeys = []
+        for k in node.partition_keys:
+            v = batch.column(k).decode(cap)[0]
+            floating = jnp.issubdtype(v.dtype, jnp.floating)
+            pkeys.append(f64_to_ordered(v) if floating else v)
+        okeys, float_raw = [], {}
+        for i, sk in enumerate(node.order_keys):
             v, _ = batch.column(sk.name).decode(cap)
-            if not sk.ascending:
-                if jnp.issubdtype(v.dtype, jnp.floating):
-                    v = -v
-                else:
-                    v = -v.astype(jnp.int64)
+            if jnp.issubdtype(v.dtype, jnp.floating):
+                code = f64_to_ordered(v)
+                float_raw[i] = v if sk.ascending else -v
+                v = code if sk.ascending else ~code
+            elif not sk.ascending:
+                v = -v.astype(jnp.int64)
             okeys.append(v)
+        extra = list(float_raw.values())
 
         # payload: every input column (+ validity lanes) so output is the
         # sorted batch with window columns appended
@@ -204,13 +215,15 @@ class WindowExec:
             else:
                 col_slots.append((len(payload) - 1, False))
 
-        operands = [~mask] + pkeys + okeys + payload + [mask]
+        operands = [~mask] + pkeys + okeys + payload + extra + [mask]
         sorted_ops = jax.lax.sort(
             operands, num_keys=1 + len(pkeys) + len(okeys), is_stable=True
         )
         s_pkeys = sorted_ops[1 : 1 + len(pkeys)]
         s_okeys = sorted_ops[1 + len(pkeys) : 1 + len(pkeys) + len(okeys)]
-        s_payload = sorted_ops[1 + len(pkeys) + len(okeys) : -1]
+        n_head = 1 + len(pkeys) + len(okeys)
+        s_payload = sorted_ops[n_head : n_head + len(payload)]
+        s_extra = dict(zip(float_raw, sorted_ops[n_head + len(payload) : -1]))
         s_mask = sorted_ops[-1]
 
         idx = jnp.arange(cap, dtype=jnp.int32)
@@ -430,7 +443,7 @@ class WindowExec:
                         )
                     from ..ops.segmented import rank_in_segments
 
-                    okey = s_okeys[0]
+                    okey = s_extra.get(0, s_okeys[0])
                     big = jnp.int64(1) << 40
                     seg = jnp.where(s_mask, part_id.astype(jnp.int64), big)
                     if k_pre is None:

@@ -1,6 +1,6 @@
 """Bind-time rewrites that specialize expressions to a concrete table's metadata.
 
-The TPU engine keeps string bytes on the host (vector/string_table.py); device
+This engine keeps string bytes on the host (vector/string_table.py); device
 VARCHAR columns are dictionary codes.  Before a pipeline is traced, expressions
 are rewritten against the scan's string tables:
 

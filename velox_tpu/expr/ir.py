@@ -3,7 +3,7 @@
 Reference: velox/core/Expressions.h / ITypedExpr.h (typed expression trees) and
 velox/expression/Expr.h:149 (compiled executable expressions).
 
-In the TPU design these two layers collapse into one: the IR below *is* the
+In this design these two layers collapse into one: the IR below *is* the
 executable form — ``velox_tpu.expr.compiler`` walks it once while tracing, and XLA
 does the work the reference's Expr interpreter does at runtime (fusion, constant
 folding, common-subexpression elimination is done here at trace time via a CSE

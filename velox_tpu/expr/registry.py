@@ -4,7 +4,7 @@ Reference: velox/expression/FunctionSignature.h:126, SignatureBinder.h:68,
 SimpleFunctionRegistry.h, VectorFunction.h:35.
 
 The reference distinguishes "simple" (scalar C++ templates auto-vectorized) from
-"vector" (hand-written batch) functions.  On TPU everything is a batch function over
+"vector" (hand-written batch) functions.  On the device everything is a batch function over
 jnp arrays, so there is one kind; the interesting metadata is *null discipline*:
 
 * ``default_null`` (the common case): impl sees decoded value arrays only; result

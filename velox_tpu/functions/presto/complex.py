@@ -4,7 +4,7 @@ Reference: velox/functions/prestosql/ArrayFunctions.h, MapFunctions.h and the
 lambda family (velox/functions/prestosql/Transform.cpp, Filter.cpp, Reduce.cpp,
 ZipWith.cpp) built on velox/expression/LambdaExpr.h + ComplexViewTypes.h.
 
-TPU re-design: an ARRAY/MAP value is per-row spans over fixed element pools
+Device re-design: an ARRAY/MAP value is per-row spans over fixed element pools
 (velox_tpu.expr.seg.SegValue).  Three evaluation regimes, all scatter-free:
 
 * span lookups (cardinality, element_at, slice) — pure gathers on any layout;
@@ -1072,7 +1072,7 @@ def _array_join_gate(ctx, expr: Call):
     raise NotImplementedError(
         "array_join builds a data-dependent string; supported only as a "
         "top-level projected output column (rendered at materialization) — "
-        "docs/roadmap.md"
+        "ROADMAP.md"
     )
 
 

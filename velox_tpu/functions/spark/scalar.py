@@ -812,7 +812,7 @@ def register_all() -> None:
     def _might_contain_gate(*_a, **_k):
         raise NotImplementedError(
             "might_contain: Spark-serialized bloom-filter literals "
-            "(VARBINARY) are not representable yet; see docs/roadmap.md"
+            "(VARBINARY) are not representable yet; see ROADMAP.md"
         )
 
     _reg.register("might_contain", [STRINGY, ANY], BOOLEAN,
@@ -821,13 +821,13 @@ def register_all() -> None:
     # bin/chr build strings from device-resident numeric values — the
     # engine's string representation is host-side dictionaries, and there is
     # no numeric->string device path yet (same limitation as
-    # cast(x as varchar); docs/roadmap.md "data-dependent string
+    # cast(x as varchar); ROADMAP.md "data-dependent string
     # construction").  Registered so plans type-check with a clear gate.
     def _num_to_string_gate(name):
         def impl(*_a, **_k):
             raise NotImplementedError(
                 f"{name}: numeric->string construction has no device "
-                "dictionary form yet; see docs/roadmap.md"
+                "dictionary form yet; see ROADMAP.md"
             )
 
         return impl

@@ -1,7 +1,7 @@
 """Host-RAM table cache: the AsyncDataCache analog.
 
 Reference: velox/common/caching/AsyncDataCache.h:639 — an in-RAM cache of file
-data integrated with the allocator, fronting storage.  The TPU engine's scan
+data integrated with the allocator, fronting storage.  This engine's scan
 path reads whole parquet column chunks into host Tables; the cache keeps those
 Tables resident keyed by (path, mtime, columns) with a byte budget and LRU
 eviction, so repeated queries over the same dataset skip storage and decode

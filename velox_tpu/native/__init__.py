@@ -1,6 +1,6 @@
 """ctypes loader + numpy wrappers for the native C++ runtime kernels.
 
-Reference: the reference engine is C++ end-to-end; the TPU re-design keeps its
+Reference: the reference engine is C++ end-to-end; the Device re-design keeps its
 compute in XLA but the host runtime pieces that stay hot (dictionary interning
 at ingest, spill/page integer codecs) are native here (src/velox_native.cc).
 

@@ -1,7 +1,7 @@
 // Native runtime kernels for the host half of the engine.
 //
 // Reference: the reference engine's entire runtime is C++ — of it, the pieces
-// that remain host-side work in the TPU design (the device side is XLA) are
+// that remain host-side work in this design (the device side is XLA) are
 // re-implemented here natively:
 //   * string-dictionary interning (reference: velox/exec/VectorHasher.h value
 //     ids and the dwrf string-dictionary writers) — the ingest hot path that

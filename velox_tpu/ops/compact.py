@@ -1,4 +1,4 @@
-"""Mask→dense compaction (the TPU form of filter result materialization).
+"""Mask→dense compaction (the device form of filter result materialization).
 
 Reference: the reference produces dictionary-wrapped vectors after filters
 (velox/exec/FilterProject.cpp); here filters narrow a boolean selection mask and
@@ -43,7 +43,7 @@ def compaction_word(mask: jax.Array) -> jax.Array:
     """The compaction permutation as ONE packed sort word (dead flag << idxb
     | row id) — sorting it through the canonical shared program
     (ops/shared_sort.py) replaces the in-program argsort when programs must
-    stay sort-free for the remote compiler."""
+    stay sort-free (config.split_sort_programs)."""
     n = mask.shape[0]
     idxb = max((n - 1).bit_length(), 1)
     iota = jnp.arange(n, dtype=jnp.int64)

@@ -1,45 +1,27 @@
-"""float64 <-> int64 word codec that compiles on every backend here.
+"""float64 <-> int64 word codec: the IEEE-754 bit view of a DOUBLE column.
 
-This environment's TPU AOT compiler rejects ANY bitcast touching a 64-bit
-float ("X64 rewriting not implemented for bitcast-convert": f64<->s64,
-f64<->u32x2 and f64<->f32x2 all fail, measured round 5).  Worse, the TPU
-backend's "f64" is a float32-PAIR emulation: a value is held as hi+lo with
-two 24-bit mantissas (values round AT UPLOAD; (1+1e-12)-1 returns
-f32(1e-12)).  An IEEE-bit view therefore cannot exist on device at all —
-pure-arithmetic bit extraction was tried and fails because the emulated
-multiply drops the lo component.
+Every backend the engine runs on (CPU, CUDA) has real IEEE float64, so the
+word is the plain 64-bit bitcast and the codec is the same lax code on
+every platform:
 
-So the codec is platform-dependent (jax.lax.platform_dependent):
+  f64_to_word     the IEEE bit pattern, bit for bit (NaN payloads and the
+                  sign of zero included); word_to_f64 is its exact inverse.
+  f64_to_ordered  the sign-flipped bit pattern: an int64 whose order is the
+                  float order, with every NaN canonicalised to one code
+                  above +inf (Presto convention) and -0.0 / +0.0 mapped to
+                  one code (they compare equal).
 
-  cpu      — the real bitcast: the word IS the IEEE-754 bit pattern.
-  default  — (TPU) the PAIR encoding: word = [bits32(hi) | bits32(lo)]
-             where hi = f32(x) and lo = f32(x - hi).
+The words are engine-internal (sort keys, payloads riding a shared sort,
+hash inputs) and never serialized.
 
-Contract: word_to_f64(f64_to_word(x)) equals the ARITHMETIC-CANONICAL
-value of x — on cpu that is x itself; on TPU it is what `x + 0.0` (or any
-other op) computes, because the emulation rounds operands to the pair and
-flushes residuals below 2^-126 in every op (measured: upload can STORE
-full f64 bits, but no arithmetic — not even x+0.0 — can see past the pair
-view, so the phantom bits are unobservable and unrecoverable).
-f64_to_ordered is monotone over canonical values with NaN above +inf
-(Presto convention).  The word VALUES differ across platforms — they are
-engine-internal (sort keys, sort payload rides, hash inputs), never
-serialized.
-
-Known limits, all inherited from the stack itself (documented, tested):
-  * subnormal doubles flush to zero everywhere (XLA CPU and the TPU
-    emulation both run DAZ/FTZ on f64 arithmetic);
-  * on TPU, values below 2^-126 in magnitude flush to zero engine-wide
-    (the emulated exponent range is float32's), and the emulated MULTIPLY
-    loses low mantissa bits for operands below ~2^-114 (its Dekker split
-    underflows) — the codec never multiplies, so it is never the
-    precision bottleneck;
-  * -0.0 round-trips to +0.0 on TPU (they compare equal engine-wide).
+Subnormals: after the bitcast the codec works on integers only, so
+subnormal inputs keep their bits and their order on every backend.  A float
+compare would not: XLA's CPU backend treats float64 subnormals as zero in
+comparisons and arithmetic (measured: 5e-324 == 0.0 is true there).  What
+the H100 does with them is printed by `chip_smoke.py` phase 3.
 
 Reference analog: the reference reads float bits directly in C++
-(velox/common/base/SimdUtil.h, velox/common/base/BitUtil.h); here the bit
-view must be computed per-backend because the hardware's 64-bit rewriter
-offers no reinterpret.
+(velox/common/base/SimdUtil.h, velox/common/base/BitUtil.h).
 """
 
 from __future__ import annotations
@@ -48,108 +30,52 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# 2^k for k in [POW2_MIN, POW2_MAX], exact f64 constants (power-of-two
-# scaling is exact in the pair emulation too: each component scales alone).
-POW2_MIN = -1074
-POW2_MAX = 1023
-_POW2 = np.ldexp(1.0, np.arange(POW2_MIN, POW2_MAX + 1)).astype(np.float64)
-
-_LO_MASK = np.int64(0xFFFFFFFF)
-_ABS32 = np.int32(0x7FFFFFFF)
 _ABS64 = np.int64(0x7FFFFFFFFFFFFFFF)
-
-
-def _pow2(k: jax.Array) -> jax.Array:
-    """2.0**k as exact f64 for integer k clipped to the representable range."""
-    idx = jnp.clip(k - POW2_MIN, 0, POW2_MAX - POW2_MIN)
-    return jnp.take(jnp.asarray(_POW2), idx)
-
-
-def _split_pair(x: jax.Array):
-    """(bits32(hi), bits32(lo)) of the arithmetic-canonical pair: hi is the
-    rounded f32, lo the residual the device's own add/subtract can still
-    see (residuals below 2^-126 are flushed by the subtract itself — every
-    arithmetic op here flushes them, so they are not recoverable and not
-    observable)."""
-    hi = x.astype(jnp.float32)
-    lo = x - hi.astype(jnp.float64)
-    # non-finite x: lo would be inf-inf = NaN; the pair is (hi, +0)
-    lo = jnp.where(jnp.isfinite(x), lo, 0.0)
-    bh = jax.lax.bitcast_convert_type(hi, jnp.int32)
-    bl = jax.lax.bitcast_convert_type(lo.astype(jnp.float32), jnp.int32)
-    return bh, bl
-
-
-def _word_pair(x: jax.Array) -> jax.Array:
-    # the emulation's -0.0 + 0.0 returns -0.0 (non-IEEE); select on compare
-    x = jnp.where(x == 0.0, jnp.float64(0.0), x)
-    bh, bl = _split_pair(x)
-    return (bh.astype(jnp.int64) << 32) | (bl.astype(jnp.int64) & _LO_MASK)
-
-
-def _unword_pair(w: jax.Array) -> jax.Array:
-    bh = (w >> 32).astype(jnp.int32)
-    bl = w.astype(jnp.int32)
-    hi = jax.lax.bitcast_convert_type(bh, jnp.float32).astype(jnp.float64)
-    lo = jax.lax.bitcast_convert_type(bl, jnp.float32).astype(jnp.float64)
-    return hi + lo
-
-
-def _flip32(b: jax.Array) -> jax.Array:
-    """Sign-magnitude flip: float order -> int order for f32 bit patterns."""
-    return b ^ ((b >> 31) & _ABS32)
-
-
-def _ordered_pair(x: jax.Array) -> jax.Array:
-    x = jnp.where(x != x, jnp.float64(np.nan), x)  # canonical positive NaN
-    # -0.0 -> +0.0 by compare-select (the emulation's -0.0 + 0.0 is -0.0)
-    x = jnp.where(x == 0.0, jnp.float64(0.0), x)
-    bh, bl = _split_pair(x)
-    kh = _flip32(bh).astype(jnp.int64)
-    kl = _flip32(bl).astype(jnp.int64) + (1 << 31)  # [0, 2^32)
-    # lexicographic (hi, lo): hi dominates because kl < 2^32
-    return (kh << 32) + kl
-
-
-def _word_cpu(x: jax.Array) -> jax.Array:
-    return jax.lax.bitcast_convert_type(x.astype(jnp.float64), jnp.int64)
-
-
-def _unword_cpu(w: jax.Array) -> jax.Array:
-    return jax.lax.bitcast_convert_type(w.astype(jnp.int64), jnp.float64)
-
-
-def _ordered_cpu(x: jax.Array) -> jax.Array:
-    x = jnp.where(x != x, jnp.float64(np.nan), x)  # canonical positive NaN
-    x = x + 0.0  # -0.0 -> +0.0: zeros get ONE code (they compare equal)
-    b = _word_cpu(x)
-    return b ^ ((b >> 63) & _ABS64)
+_INF_BITS = np.int64(0x7FF0000000000000)
+_NAN_BITS = np.int64(0x7FF8000000000000)
 
 
 def f64_to_word(x: jax.Array) -> jax.Array:
-    """Invertible int64 word for a float64 column (see module docstring:
-    IEEE bits on cpu, the pair encoding on TPU)."""
-    return jax.lax.platform_dependent(x, cpu=_word_cpu, default=_word_pair)
+    """Invertible int64 word for a float64 column: its IEEE bit pattern."""
+    return jax.lax.bitcast_convert_type(x.astype(jnp.float64), jnp.int64)
 
 
 def word_to_f64(w: jax.Array) -> jax.Array:
-    """Inverse of f64_to_word on the same platform."""
-    return jax.lax.platform_dependent(
-        w, cpu=_unword_cpu, default=_unword_pair
-    )
+    """Inverse of f64_to_word."""
+    return jax.lax.bitcast_convert_type(w.astype(jnp.int64), jnp.float64)
 
 
 def f64_to_ordered(x: jax.Array) -> jax.Array:
     """int64 key whose ordering matches the float ordering; NaN sorts above
     +inf (Presto convention); -0.0 and +0.0 map to the same code."""
-    return jax.lax.platform_dependent(
-        x, cpu=_ordered_cpu, default=_ordered_pair
-    )
+    b = f64_to_word(x)
+    mag = b & _ABS64
+    # every NaN -> the canonical positive NaN; -0.0 -> +0.0.  Integer
+    # compare-selects on the bits: a float `x + 0.0` may be folded away by a
+    # simplifier, and a float compare may see a subnormal as zero
+    b = jnp.where(mag > _INF_BITS, _NAN_BITS, b)
+    b = jnp.where(mag == 0, jnp.int64(0), b)
+    return b ^ ((b >> 63) & _ABS64)
+
+
+def ordered_to_f64(k: jax.Array, dtype=jnp.float64) -> jax.Array:
+    """Inverse of f64_to_ordered up to canonicalisation (NaN -> one NaN,
+    -0.0 -> +0.0): the sign flip is its own inverse."""
+    return word_to_f64(k ^ ((k >> 63) & _ABS64)).astype(dtype)
+
+
+def np_f64_to_ordered(x: np.ndarray) -> np.ndarray:
+    """numpy twin of f64_to_ordered, for host-side merges."""
+    b = np.ascontiguousarray(x, dtype=np.float64).view(np.int64)
+    mag = b & _ABS64
+    b = np.where(mag > _INF_BITS, _NAN_BITS, b)
+    b = np.where(mag == 0, np.int64(0), b)
+    return b ^ ((b >> 63) & _ABS64)
 
 
 def f32_to_bits64(x: jax.Array) -> jax.Array:
-    """int64 carrying a float32's bit pattern (32-bit bitcasts work on
-    every backend here), sign-extended; invert with bits64_to_f32."""
+    """int64 carrying a float32's bit pattern, sign-extended; invert with
+    bits64_to_f32."""
     return jax.lax.bitcast_convert_type(
         x.astype(jnp.float32), jnp.int32
     ).astype(jnp.int64)
@@ -160,8 +86,7 @@ def bits64_to_f32(w: jax.Array) -> jax.Array:
 
 
 def u64_to_i64(x: jax.Array) -> jax.Array:
-    """Bit-preserving uint64 -> int64 (two's-complement wrap; astype is a
-    convert, not a bitcast, so the 64-bit rewriter handles it)."""
+    """Bit-preserving uint64 -> int64 (two's-complement wrap)."""
     return x.astype(jnp.int64)
 
 

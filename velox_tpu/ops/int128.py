@@ -1,11 +1,11 @@
 """128-bit integer arithmetic over (hi, lo) int64 limb pairs.
 
 Reference: velox/type/HugeInt.h + DecimalUtil.h — the reference backs
-DECIMAL(p>18) with a native __int128.  TPUs have no 128-bit integer type, so
+DECIMAL(p>18) with a native __int128.  XLA has no 128-bit integer type, so
 a hugeint value v is represented as two int64 columns with
 ``v = hi * 2**64 + uint64(lo)`` — hi carries the sign, lo is the raw low
-word.  Every op here is a branch-free elementwise jnp expression (VPU-
-friendly, fully fusable); numpy twins with identical bit semantics drive the
+word.  Every op here is a branch-free elementwise jnp expression (fully
+fusable); numpy twins with identical bit semantics drive the
 host-side oracles and the host halves of the engine.
 
 The device functions are registered into the scalar function registry under
@@ -357,7 +357,7 @@ def register_i128_functions() -> None:
 
     # --- rounded signed division -----------------------------------------
     # Shift-subtract 128/128 long division on magnitudes (128 fori_loop
-    # iterations of fused u64 VPU ops — branch-free, data-parallel), then
+    # iterations of fused u64 ops — branch-free, data-parallel), then
     # round half away from zero.  Reference: DecimalUtil::divideWithRoundUp.
     from jax import lax
 

@@ -3,9 +3,7 @@
 A complex column stores its elements in a flat, fixed-capacity *pool* plus
 per-row (start, size) spans (Arrow/Velox list layout: velox/vector/
 ComplexVector.h ArrayVector offsets+sizes).  Everything here is built from
-sort + scan + gather only, per the measured TPU cost model in
-velox_tpu/ops/segmented.py (scatters and vectorized binary search are 1-2
-orders of magnitude slower than sorts on v5e).
+sort + scan + gather only, per the cost model in ops/segmented.py.
 
 The central invariant is the **normalized pool**: rows' element runs are
 contiguous, in row order, starting at 0 (starts = exclusive-cumsum(sizes)).

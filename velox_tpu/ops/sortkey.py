@@ -3,10 +3,10 @@
 Reference: velox/exec/VectorHasher.h:118 (range-mode value ids) and
 velox/exec/HashTable.h:74 (kNormalizedKey) — the reference packs multi-column
 keys into one 64-bit normalized key so its hash table can compare single
-words.  Here the same trick feeds ``jax.lax.sort``: the TPU sort network's
-cost (both run time and the remote AOT compile time, measured ~10 s/operand at
-4M rows) grows with the operand count, so packing (liveness, key columns,
-payload row-id) into ONE int64 turns a 5-operand sort into a 1-operand sort.
+words.  Here the same trick feeds ``jax.lax.sort``: a sort's cost (run time
+and compile time) grows with the operand count, so packing (liveness, key
+columns, payload row-id) into ONE int64 turns a 5-operand sort into a
+1-operand sort.
 
 The pack is purely order-preserving arithmetic: each field occupies a fixed
 bit span sized from *host-known inclusive bounds* (``fit`` below).  Bounds come

@@ -5,7 +5,7 @@ OutputBufferManager -> HTTP -> ExchangeSource pipeline
 (velox/exec/PartitionedOutput.h:139, OutputBuffer.h:131, ExchangeSource.h:22,
 ExchangeClient.h:26, wire format serializers/PrestoSerializer.cpp).
 
-TPU re-design (SURVEY.md §5.8): rows never leave the devices.  Each device
+Device re-design (SURVEY.md §5.8): rows never leave the devices.  Each device
 hash-partitions its rows into fixed-capacity per-destination buckets, then one
 ``jax.lax.all_to_all`` moves every bucket to its destination over ICI/DCN; counts
 ride along to mark the ragged valid region.  Backpressure becomes static bucket
@@ -60,7 +60,7 @@ def bucketize(
     (round-2 VERDICT weak #8; the reference's analog is OutputBuffer
     backpressure, velox/exec/OutputBuffer.h:131, which blocks instead of
     dropping).  Implemented as one sort by destination plus dense gathers —
-    no scatters, which is the TPU-friendly formulation of the reference's
+    no scatters, which is the device-friendly formulation of the reference's
     per-destination append loop (PartitionedOutput.cpp:216).
     """
     from ..ops.segmented import direct_group_reduce

@@ -5,7 +5,7 @@ partitions BOTH join sides by key hash (PartitionedOutput kPartitioned mode) so
 each worker joins only its key range; small build sides broadcast instead
 (kBroadcast).  The choice is made by build cardinality.
 
-TPU re-design: the build side is partitioned by the SAME splitmix64 hash the
+Device re-design: the build side is partitioned by the SAME splitmix64 hash the
 device exchange uses (parallel/exchange.py hash64) and uploaded as stacked
 ``[n_devices, part_capacity]`` arrays sharded over the mesh axis — device d
 holds exactly the build rows with ``hash64(key) % n == d``.  Probe rows reach

@@ -598,7 +598,7 @@ class PlanBuilder:
         INNER/LEFT/RIGHT/FULL (reference: core::NestedLoopJoinNode,
         exec/NestedLoopJoinProbe.cpp:23).
 
-        TPU lowering: the Cartesian pairing rides the expansion hash join
+        Device lowering: the Cartesian pairing rides the expansion hash join
         with a constant key on both sides, and the condition becomes the
         join FILTER — the non-equi filter machinery then keeps LEFT/FULL
         unmatched rows with NULL build columns (same rewrites the reference

@@ -6,7 +6,7 @@ columnar, optionally compressed, CRC-protected) and the VectorSerde registry
 encodings like the reference's dwio integer encoders
 (velox/dwio/common/IntDecoder.h), implemented natively (velox_tpu/native).
 
-In the TPU engine rows cross device boundaries as collectives (parallel/
+In this engine rows cross device boundaries as collectives (parallel/
 exchange.py), so this format exists for the *host* boundaries the reference
 also serves: persistence of intermediate results, spill files, cross-process
 interchange, and parity testing.  Layout (little-endian):

@@ -17,7 +17,7 @@ subquery with an alias.  Scalar expressions are delegated to the engine's
 expression parser (expr/parser.py); this module only handles statement
 structure, cross-source name resolution, and aggregate extraction.
 
-Design notes (TPU-first consequences):
+Design notes (device-first consequences):
 - comma-style FROM extracts equi-conjuncts from WHERE into hash-join keys in
   FROM order and pushes single-source conjuncts below the joins — the minimal
   planning the fixed-shape tile programs need (there is no cost-based

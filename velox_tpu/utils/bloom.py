@@ -1,7 +1,7 @@
 """Bloom filter over 64-bit keys — host build, device-queryable.
 
 Reference: velox/common/base/BloomFilter.h (blocked bloom used for IN-list
-style pushdown and Spark's bloom_filter_agg).  The TPU form keeps the bit
+style pushdown and Spark's bloom_filter_agg).  The device form keeps the bit
 array as a uint32 word vector: membership tests are two gathers + bit tests
 per hash, which XLA fuses into the surrounding scan program — no scatter on
 the query path (inserts happen host-side at build time, like the reference's

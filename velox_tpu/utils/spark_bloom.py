@@ -9,7 +9,7 @@ twang_mix64), velox/functions/sparksql/MightContain.h.
 Wire format (BloomFilter::serialize): int8 version(=1) + int32 word count +
 uint64 words, all little-endian.
 
-TPU split: the filter BUILDS on device as a grouped bitwise-OR aggregation
+Device split: the filter BUILDS on device as a grouped bitwise-OR aggregation
 (exec/sketch.py rewrite — no scatter needed), assembles into this wire
 format host-side, and PROBES on device with one gather + mask test per row.
 """
@@ -146,9 +146,7 @@ def register_bloom_device_fns() -> None:
         import jax.numpy as jnp
 
         m = bloom_mask_jnp(twang_mix64_jnp(x.astype(jnp.int64)))
-        # astype wraps two's-complement (bit-preserving); a 64-bit bitcast
-        # does not compile through this TPU stack's X64 rewriter
-        return m.astype(jnp.int64)
+        return m.astype(jnp.int64)  # two's-complement wrap, bit-preserving
 
     DEFAULT_REGISTRY.register("__bloom_word64", [NUMERIC, NUMERIC], BIGINT, _word)
     DEFAULT_REGISTRY.register("__bloom_mask64", [NUMERIC], BIGINT, _mask)

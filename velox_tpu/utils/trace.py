@@ -51,7 +51,7 @@ def status() -> str:
 
 @contextlib.contextmanager
 def xla_profile(log_dir: str):
-    """Capture an XLA/TPU profiler trace around a query (view in
+    """Capture an XLA profiler trace around a query (view in
     TensorBoard/xprof).  The device-level analog of the reference's
     per-operator wall/CPU timers (SURVEY §5.1: 'add XLA profiler/trace
     integration'); host-side counters live in utils/stats + reporter."""

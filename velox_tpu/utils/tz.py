@@ -4,7 +4,7 @@ Reference: velox/type/tz/ — TimeZoneMap.h (zone name -> id), TimeZoneInfo
 (transition list + offsets), used by at_timezone / from_unixtime(…, zone) /
 timezone_hour (functions/prestosql/DateTimeFunctions.h).
 
-TPU re-design: a zone's entire history is two sorted int64 arrays
+Device re-design: a zone's entire history is two sorted int64 arrays
 (UTC transition instants in µs, offsets in µs).  Converting a timestamp
 column is then one vectorized ``searchsorted`` + gather — no per-row host
 logic, fully fusable by XLA.  Tables parse straight from the system TZif

@@ -1,7 +1,7 @@
 """Host + device representation of ARRAY / MAP columns.
 
 Reference: velox/vector/ComplexVector.h (ArrayVector/MapVector: offsets+sizes
-spans over flat element children).  The TPU design keeps exactly that layout —
+spans over flat element children).  This design keeps exactly that layout —
 it is already the columnar-offset form SURVEY.md §7 calls for:
 
 * host side: :class:`HostSegments` — dense int32 sizes + child pools as numpy

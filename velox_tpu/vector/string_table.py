@@ -2,7 +2,7 @@
 
 The reference stores strings in columnar memory as 16-byte StringViews
 (velox/type/StringView.h:46) with out-of-line bodies.  Variable-width data is hostile
-to a vector machine, so the TPU design commits to what the reference's scan layer
+to a vector machine, so this design commits to what the reference's scan layer
 already prefers for low-cardinality strings (dwrf string-dictionary readers): on
 device, a VARCHAR column is **always** an int32 code vector; the code→bytes mapping
 lives here, on the host, and is only consulted at ingest (literal → code) and egress
